@@ -9,20 +9,13 @@ import sys
 import tempfile
 import time
 
-os.environ["JAX_PLATFORMS"] = "cpu"
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 from genomicsdb_tpu.core.config import QueryParams  # noqa: E402
-from genomicsdb_tpu.core.vid import VidMapper  # noqa: E402
 from genomicsdb_tpu.query import driver  # noqa: E402
 from genomicsdb_tpu.store.import_pipeline import (  # noqa: E402
     import_callsets)
-
-REF_TESTS = "/root/reference/tests"
+from genomicsdb_tpu.tools import synth_cohort  # noqa: E402
 
 
 def write_cohort(path, n_samples=100, n_records=500):
@@ -72,11 +65,8 @@ def main():
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "cohort.vcf")
         samples = write_cohort(path)
-        vid = VidMapper.from_files(
-            os.path.join(REF_TESTS, "inputs/vid.json"))
-        vid.parse_callsets({"callsets": {
-            s: {"row_idx": i, "idx_in_file": i, "filename": path}
-            for i, s in enumerate(samples)}})
+        vid = synth_cohort.load_vid(*synth_cohort.write_mappings(
+            d, [(path, samples)]))
         t0 = time.time()
         store = import_callsets(vid)
         print(f"import: {store.num_cells} cells in {time.time()-t0:.2f}s")

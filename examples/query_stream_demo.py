@@ -6,12 +6,7 @@ interval queries through FeatureReader."""
 import os
 import sys
 
-os.environ["JAX_PLATFORMS"] = "cpu"
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
 
 from genomicsdb_tpu.core.config import QueryParams  # noqa: E402
 from genomicsdb_tpu.core.vid import VidMapper  # noqa: E402

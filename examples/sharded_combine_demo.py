@@ -1,25 +1,20 @@
-"""Multi-chip sharded combine demo on a virtual 8-device CPU mesh.
+"""Multi-device sharded combine demo over every visible device.
 
 The production layout: a 2-D (position, sample-row) jax.sharding.Mesh;
 genome positions shard like the reference's MPI column partitions
 (SURVEY.md 2.7) over one mesh axis, samples over the other, with
-cross-sample reductions as psum/all_gather over ICI.  On real hardware
-the same code runs over TPU chips — here XLA simulates 8 devices.
+cross-sample reductions as all_gather collectives (NCCL on GPUs).  On
+the CPU, XLA_FLAGS=--xla_force_host_platform_device_count=8 simulates
+eight devices.
 """
 
 import os
 import sys
 
-os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["XLA_FLAGS"] = (
-    os.environ.get("XLA_FLAGS", "")
-    + " --xla_force_host_platform_device_count=8")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
 
 from genomicsdb_tpu.ops.combine_step import synthesize_cohort  # noqa: E402
 from genomicsdb_tpu.parallel.sharded import (  # noqa: E402
@@ -28,7 +23,9 @@ from genomicsdb_tpu.parallel.sharded import (  # noqa: E402
 
 def main():
     print(f"devices: {len(jax.devices())} x {jax.devices()[0].platform}")
-    n_pos, n_row = 4, 2
+    n_dev = len(jax.devices())
+    n_row = 2 if n_dev % 2 == 0 else 1
+    n_pos = n_dev // n_row
     mesh = make_mesh(n_pos, n_row)
     blk = synthesize_cohort(num_samples=8, cells_per_sample=64,
                             region_len=4096, seed=7)

@@ -1,4 +1,4 @@
-"""genomicsdb_tpu: TPU-native variant-array engine.
+"""genomicsdb_tpu: variant-array engine on JAX/XLA.
 
 The flattened genome axis spans ~3.1e9 positions (> int32), so 64-bit JAX
 types are enabled package-wide.  Per-block kernels still use int32 for field

@@ -1,4 +1,4 @@
-"""Batched JAX/XLA kernels for the combine pipeline (the TPU compute path).
+"""Batched JAX/XLA kernels for the combine pipeline (the device compute path).
 
 The sequential oracle in ops/merge.py processes one call at a time (as the
 reference C++ does).  These kernels process a whole block of records at once
@@ -82,8 +82,8 @@ def remap_genotype_fields(values: jnp.ndarray, inv_lut: jnp.ndarray,
     num_merged: [R]        actual #merged alleles per record
     Returns [R, S, G] remapped, INT_MISSING where no mapping.
 
-    TPU note: the ploidy axis is unrolled statically (a [.., G, P] tensor
-    with P minor would be lane-padded ~64x); per-slot tensors stay [R,S,G].
+    The ploidy axis is unrolled statically (a [.., G, P] tensor with a
+    tiny P minor axis pads badly); per-slot tensors stay [R,S,G].
     """
     combos = genotype_combo_table(num_merged_alleles, ploidy)  # host np
     # the nCr table only feeds genotype-index terms for slots >= 4
@@ -93,9 +93,8 @@ def remap_genotype_fields(values: jnp.ndarray, inv_lut: jnp.ndarray,
         if ploidy > 4 else None
     G = combos.shape[0]
     Kv = values.shape[-1]
-    # TPU layout: compute in [R, G, S] — S rides the 128-lane axis, so a
-    # G- or K-minor tensor does not pad its minor dim ~13x (the [R, S, G]
-    # formulation measured ~5x slower end-to-end on v5e)
+    # compute in [R, G, S]: the wide sample axis is minor, so a small
+    # G or K axis never becomes the padded minor dimension
     v_t = jnp.swapaxes(values, 1, 2)                  # [R, Kv, S]
     inv_t = jnp.swapaxes(inv_lut, 1, 2)               # [R, M, S]
     nr = input_nr[:, None, :]                         # [R, 1, S]
@@ -128,8 +127,8 @@ def remap_genotype_fields(values: jnp.ndarray, inv_lut: jnp.ndarray,
             term = ncr[i + a, a]
         in_gt = in_gt + term
     in_range = in_gt < in_len[:, None, :]
-    # lane-parallel gather: unrolled selects over the static Kv axis
-    # (take_along_axis lowers to a slow generic gather on TPU).  Past
+    # sample-parallel gather: unrolled selects over the static Kv axis
+    # (elementwise selects fuse; take_along_axis is a generic gather).  Past
     # ~32 source slots the unroll stops paying (and its compile cost
     # explodes at the 50-alt cap, Kv=C(52,2)=1326) — use the generic
     # gather there; wide-allele blocks are rare multi-allelic hotspots.
@@ -244,8 +243,7 @@ def live_cells_at(starts: jnp.ndarray, col_by_row: jnp.ndarray,
     col_by_row/end_by_row: [S, C] per-row cell begins/effective-ENDs sorted
     ascending (padded with int64 max).  starts: [B].
     Replaces the left sweep + forward scan with a vectorized binary
-    search: log2(C) unrolled rounds of [B, S] gathers (XLA's searchsorted
-    lowering is several times slower on TPU for this shape).
+    search: log2(C) unrolled rounds of [B, S] gathers.
     """
     S, C = col_by_row.shape
     B = starts.shape[0]

@@ -220,9 +220,8 @@ def dense_layout(store: ColumnarStore, qc: QueryConfig, plan,
     This is the key to device-resident serving: chunks and repeated
     interval queries index the SAME slab arrays, so (a) the per-chunk
     host cost collapses to live-index searchsorteds + allele LUTs, and
-    (b) the device-side copies (block_writer/pallas payload caches)
-    upload once per store instead of once per chunk — through a slow
-    attachment the per-chunk upload otherwise dominates end to end.
+    (b) the device-side copies (block_to_args_cached) upload once per
+    store instead of once per chunk.
 
     PL/AD input widths are store-global maxima (pow2-bucketed): the
     remap masks (in_gt/idx < in_len) make any width >= the true max

@@ -76,12 +76,14 @@ class RankPool:
     Fork happens in __init__ and MUST precede any XLA backend
     initialization in the calling process (jax module imports are fine;
     a live client's threads are not) — each worker initializes its own
-    backend on first use."""
+    backend on first use, with its share of the card's memory
+    (runtime/device_env.rank_env)."""
 
     def __init__(self, num_ranks: int, pin_cores: bool = True):
         if not hasattr(os, "fork"):
             raise RuntimeError("RankPool requires os.fork")
         # pre-import the worker's modules once: children share them COW
+        from ..runtime.device_env import rank_env
         from ..tools import gdb_query  # noqa: F401
         ncores = os.cpu_count() or 1
         self._workers = []
@@ -94,6 +96,8 @@ class RankPool:
                 os.close(res_r)
                 code = 0
                 try:
+                    # this worker's share of the card (device_env)
+                    os.environ.update(rank_env(i, num_ranks, base={}))
                     if pin_cores and hasattr(os, "sched_setaffinity"):
                         os.sched_setaffinity(0, {i % ncores})
                     _worker_loop(req_r, res_w)

@@ -7,8 +7,11 @@ device mesh (SURVEY.md §2.7):
     position-sharded interval blocks; combine is partition-local.
   * "row"  axis: row/sample partitioning ("row_based_partitioning",
     genomicsdb_config_base.h:163) — INFO combine ops reduce across the
-    sample axis, so sample-sharded execution uses ICI collectives
-    (all_gather / psum) instead of the reference's process-local loops.
+    sample axis, so sample-sharded execution uses collectives
+    (all_gather, which XLA hands to NCCL on GPUs) instead of the
+    reference's process-local loops.  Every card reaches every other at
+    the same rate over NVLink, so the mesh shape follows the algorithm
+    alone.
 
 The per-shard step is the SAME `_combine_math` as the single-chip
 combine_step — cross-sample reductions all_gather the sample axis over
@@ -24,10 +27,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core import formats
@@ -51,7 +51,8 @@ def sharded_combine_step(mesh: Mesh, max_merged: int, ploidy: int,
     Records are sharded over "pos"; samples (cells) over "row".  Each
     (pos, row) shard gathers its local [B_loc, S_loc] slab and runs
     `_combine_math` with axis_name="row": sample-axis reductions
-    all_gather the full sample axis over ICI, remaps stay local.
+    all_gather the full sample axis (an NCCL collective on GPUs),
+    remaps stay local.
     Input/output layout matches combine_step's block_to_args exactly.
     """
 
@@ -83,12 +84,8 @@ def sharded_combine_step(mesh: Mesh, max_merged: int, ploidy: int,
         "info_fsum": P(None, "pos"), "info_fsum_ok": P(None, "pos"),
         "dp_info_sum": P("pos"),
     }
-    try:
-        fn = shard_map(step, mesh=mesh, in_specs=specs_in,
-                       out_specs=specs_out, check_vma=False)
-    except TypeError:  # pre-0.8 jax
-        fn = shard_map(step, mesh=mesh, in_specs=specs_in,
-                       out_specs=specs_out, check_rep=False)
+    fn = shard_map(step, mesh=mesh, in_specs=specs_in,
+                   out_specs=specs_out, check_vma=False)
     return jax.jit(fn)
 
 
@@ -174,136 +171,3 @@ def shard_block(mesh: Mesh, blk: CellBlock):
     shardings = tuple(NamedSharding(mesh, s) for s in _input_specs())
     return tuple(jax.device_put(np.asarray(a), s)
                  for a, s in zip(args, shardings))
-
-
-# ---------------------------------------------------------------------------
-# Mesh-sharded fused Pallas path: each (pos, row) shard runs the SAME
-# sublane-packed VMEM kernel as the single-chip fast path on its local
-# [B_loc, S_loc] slab; cross-sample INFO reductions all_gather the
-# sample axis over "row" (ICI) exactly like the XLA sharded step.
-# ---------------------------------------------------------------------------
-
-def _fused_input_specs(mixed: bool = False, ws: int = 0):
-    w2_spec = P("pos", "row") if ws else P("pos", None, "row")
-    return (
-        P("row", None, None),              # payload [S, V, Cpad]
-        P("row", "pos", None),             # live_rt [S, T, bt]
-        P("row", None, "pos", None),       # inv_rt [S, M, T, bt]
-        P("row", "pos", None),             # nr_rt [S, T, bt]
-        P("pos", None),                    # recnm_rt [T, bt]
-        P("pos", None),                    # recnr_rt [T, bt]
-        w2_spec,                           # w2 [T2, rt, S] | [T2, S]
-    ) + ((P("row", "pos", None),) if mixed else ()) + (   # gtl_rt
-        P("pos", "row"),                   # del_rw [B, S]
-        P("pos", "row"),                   # live_bs [B, S]
-    )
-
-
-def sharded_combine_step_fused(mesh: Mesh, cfg, b_local: int,
-                               interpret: bool = False):
-    """Fused-kernel sharded step for prepared (shard_block_fused) args.
-
-    `cfg` is the pallas_combine.FusedConfig (rt > 1 required);
-    `b_local` is the per-"pos"-shard record count (B_pad // n_pos)."""
-    from functools import partial
-    from ..ops.combine_step import _reduce_math
-    from ..ops import pallas_combine as PC
-    assert cfg.rt > 1, "mesh fused path uses the sublane-packed kernel"
-    reduce_fn = partial(_reduce_math, axis_name="row")
-
-    def step(pay, live_rt, inv_rt, nr_rt, recnm_rt, recnr_rt, w2,
-             *rest) -> Dict[str, jnp.ndarray]:
-        gtl_rt = rest[0] if cfg.mixed else None
-        del_rw, live_bs = rest[-2], rest[-1]
-        S_loc = pay.shape[0]
-        out = PC.fused_gather_remap_rt(pay, live_rt, inv_rt, nr_rt,
-                                       recnm_rt, recnr_rt, w2, gtl_rt,
-                                       cfg=cfg, interpret=interpret)
-        out = out.reshape(S_loc, cfg.vout, b_local)
-        return PC._fused_post(out, del_rw, live_bs, cfg, b_local,
-                              reduce_fn)
-
-    bsr = P("pos", "row", None)
-    bs = P("pos", "row")
-    specs_out = {
-        "pl": bsr, "ad": bsr, "gt": bsr,
-        "gq": bs, "dp_format": bs, "min_dp": bs, "live": bs,
-        "info_median": P(None, "pos"), "info_median_ok": P(None, "pos"),
-        "info_imedian": P(None, "pos"), "info_imedian_ok": P(None, "pos"),
-        "info_fsum": P(None, "pos"), "info_fsum_ok": P(None, "pos"),
-        "dp_info_sum": P("pos"),
-    }
-    try:
-        fn = shard_map(step, mesh=mesh,
-                       in_specs=_fused_input_specs(cfg.mixed, cfg.ws),
-                       out_specs=specs_out, check_vma=False)
-    except TypeError:  # pre-0.8 jax
-        fn = shard_map(step, mesh=mesh,
-                       in_specs=_fused_input_specs(cfg.mixed, cfg.ws),
-                       out_specs=specs_out, check_rep=False)
-    return jax.jit(fn)
-
-
-def shard_block_fused(mesh: Mesh, blk: CellBlock, *, max_merged: int,
-                      ploidy: int, gt_phase: bool = False, rt: int = 0,
-                      mixed_ploidy: bool = False):
-    """Prepare + device-put a block for the fused sharded step.
-
-    Pads records to a multiple of n_pos*rt*128 and samples to n_row,
-    computes the global window plan on the host, and shards the
-    kernel-layout arrays over the mesh.  Returns
-    (args, cfg, b_local, b_real, s_real) or None when the fused path
-    does not apply (window premise failure / ploidy > 6 / no rt fits
-    the scoped-VMEM budget)."""
-    import dataclasses
-    from ..ops import pallas_combine as PC
-    if ploidy > 6:
-        return None
-    n_pos, n_row = mesh.devices.shape
-    if mixed_ploidy and blk.gt_len_bs is None:
-        return None
-    cfg = PC.make_fused_config(blk, max_merged=max_merged, ploidy=ploidy,
-                               gt_phase=gt_phase, rt=rt,
-                               mixed=mixed_ploidy)
-    if cfg.rt <= 1:
-        return None
-    # VMEM-aware rt clamp (same budget as the single-chip path): halve
-    # the record sublanes until the per-instance temporaries fit
-    budget = PC._vmem_budget_bytes()
-    while cfg.rt > 2 and PC.scoped_vmem_estimate(cfg) > budget:
-        cfg = dataclasses.replace(cfg, rt=cfg.rt // 2)
-    if PC.scoped_vmem_estimate(cfg) > budget:
-        return None
-    B, S = np.asarray(blk.live).shape
-    pblk = pad_block_for_mesh(blk, 1, n_row)       # samples to n_row
-    prep = PC.fused_host_prep(pblk, cfg,
-                              bpad_to=n_pos * cfg.rt * cfg.bt)
-    if prep is None:
-        return None
-    cfg = prep["cfg"]
-    S_p = prep["pay"].shape[0]
-    Bp = prep["live_p"].shape[0]
-    T = Bp // cfg.bt
-    arrs = (
-        prep["pay"],
-        prep["live_t"][:, 0].reshape(S_p, T, cfg.bt),
-        prep["inv_t"].reshape(S_p, prep["inv_t"].shape[1], T, cfg.bt),
-        prep["nr_t"][:, 0].reshape(S_p, T, cfg.bt),
-        prep["recnm2"][0].reshape(T, cfg.bt),
-        prep["recnr2"][0].reshape(T, cfg.bt),
-        prep["w2"],
-    )
-    if cfg.mixed:
-        gtl = np.asarray(pblk.gt_len_bs)
-        gtl_p = np.pad(gtl, ((0, Bp - gtl.shape[0]), (0, 0)),
-                       constant_values=0)
-        arrs += (np.ascontiguousarray(gtl_p.T).astype(
-            np.int32).reshape(S_p, T, cfg.bt),)
-    arrs += (
-        prep["del_rw_p"],
-        prep["live_p"].astype(np.int32),
-    )
-    shardings = tuple(NamedSharding(mesh, s)
-                      for s in _fused_input_specs(cfg.mixed, cfg.ws))
-    args = tuple(jax.device_put(a, s) for a, s in zip(arrs, shardings))
-    return args, cfg, Bp // n_pos, B, S

@@ -8,7 +8,7 @@ sub-interval; overlapping same-row cells overwrite the live call; while any
 live call contains a deletion the sweep single-position-steps.
 
 This sequential engine is the semantics oracle; `ops/` holds the batched
-TPU formulation used for large cohorts.
+device formulation used for large cohorts.
 """
 
 from __future__ import annotations

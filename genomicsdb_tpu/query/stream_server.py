@@ -232,13 +232,14 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=24242)
     p.add_argument("--base-dir", default="")
     p.add_argument("--platform", default=None,
-                   help="pin the jax platform via jax.config (env "
-                        "JAX_PLATFORMS can be overridden by a "
-                        "pre-registered TPU plugin)")
+                   help="pin the jax platform (e.g. 'cpu', 'gpu'); "
+                        "default: JAX's own choice")
     args = p.parse_args(argv)
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
+    from ..runtime.device_env import init_compile_cache
+    init_compile_cache()
     srv = QueryStreamServer(args.host, args.port, args.base_dir)
     print(f"query-stream server on {srv.address[0]}:{srv.address[1]}",
           flush=True)

@@ -1,7 +1,7 @@
 """Columnar variant store.
 
 One `ColumnarStore` holds all cells of one column partition as a
-Structure-of-Arrays, sorted column-major by (col, row) — the TPU-native
+Structure-of-Arrays, sorted column-major by (col, row) — the batch-friendly
 replacement for the reference's TileDB sparse array + END-duplicated cells
 (reference src/main/cpp/src/genomicsdb/variant_storage_manager.cc,
 load_operators.cc:161-298).

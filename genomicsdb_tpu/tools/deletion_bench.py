@@ -3,8 +3,7 @@
 Generates a cohort where ~9% of records are spanning deletions (the
 reference's handle_deletions path, broad_combined_gvcf.cc:912-1078),
 runs both engines on the full range, asserts byte-identical output and
-prints one JSON line with the speedup (the number cited in
-docs/performance.md "Deletion handling").
+prints one JSON line with the speedup.
 
 Usage: python -m genomicsdb_tpu.tools.deletion_bench [--samples N]
 """
@@ -70,26 +69,17 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--samples", type=int, default=100)
     ap.add_argument("--records", type=int, default=1000)
-    ap.add_argument("--platform", default="cpu",
-                    help="jax platform to pin ('cpu' default; "
-                         "'default' leaves the environment's backend)")
     args = ap.parse_args(argv)
-    if args.platform != "default":
-        import jax
-        jax.config.update("jax_platforms", args.platform)
     from genomicsdb_tpu.core.config import QueryParams
-    from genomicsdb_tpu.core.vid import VidMapper
     from genomicsdb_tpu.query import driver
     from genomicsdb_tpu.store.import_pipeline import import_callsets
+    from genomicsdb_tpu.tools import synth_cohort
 
     path = os.path.join(tempfile.mkdtemp(), "del_cohort.vcf")
     region = make_cohort(path, args.samples, args.records)
-    vid = VidMapper.from_files(os.path.join(
-        os.environ.get("GENOMICSDB_TPU_REF_TESTS",
-                       "/root/reference/tests"), "inputs/vid.json"))
-    vid.parse_callsets({"callsets": {
-        f"S{i}": {"row_idx": i, "idx_in_file": i, "filename": path}
-        for i in range(args.samples)}})
+    vid = synth_cohort.load_vid(*synth_cohort.write_mappings(
+        os.path.dirname(path),
+        [(path, [f"S{i}" for i in range(args.samples)])]))
     store = import_callsets(vid)
     qp = QueryParams()
     qp.scan_full = True

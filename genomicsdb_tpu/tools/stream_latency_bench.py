@@ -8,9 +8,6 @@ in-process, and times repeated 10 kb interval queries through the FULL
 external attachment round trip: TCP connect + JSON query parse + store
 open (cached) + block-engine combine + BCF2 encode + socket stream.
 
-This is the reproducible form of the docs/performance.md
-"interval-query latency" socket figures.
-
 Usage: python -m genomicsdb_tpu.tools.stream_latency_bench \
           [--records N] [--samples N] [--queries N]
 """
@@ -33,11 +30,7 @@ def main(argv=None):
     ap.add_argument("--queries", type=int, default=40)
     ap.add_argument("--warmup", type=int, default=6)
     ap.add_argument("--interval", type=int, default=10_000)
-    ap.add_argument("--platform", default="cpu")
     args = ap.parse_args(argv)
-    if args.platform != "default":
-        import jax
-        jax.config.update("jax_platforms", args.platform)
 
     from genomicsdb_tpu.core.vid import VidMapper
     from genomicsdb_tpu.query.stream_server import (QueryStreamServer,
@@ -45,39 +38,13 @@ def main(argv=None):
     from genomicsdb_tpu.store import workspace as ws
     from genomicsdb_tpu.store.import_pipeline import import_callsets
     from genomicsdb_tpu.tools.genome_bench import make_cohort
+    from genomicsdb_tpu.tools.synth_cohort import write_mappings
 
     tmp = tempfile.mkdtemp()
     vcf_path = os.path.join(tmp, "genome_cohort.vcf")
     region = make_cohort(vcf_path, args.samples, args.records)
-    # self-contained vid covering the cohort's fields (no dependency on
-    # a reference checkout)
-    vid_file = os.path.join(tmp, "vid.json")
-    with open(vid_file, "w") as f:
-        json.dump({
-            "fields": {
-                "PASS": {"vcf_field_class": ["FILTER"], "type": "int"},
-                "GT": {"vcf_field_class": ["FORMAT"], "type": "int",
-                       "length": "P"},
-                "AD": {"vcf_field_class": ["FORMAT"], "type": "int",
-                       "length": "R"},
-                "DP": {"vcf_field_class": ["FORMAT", "INFO"],
-                       "type": "int"},
-                "GQ": {"vcf_field_class": ["FORMAT"], "type": "int"},
-                "MIN_DP": {"vcf_field_class": ["FORMAT"],
-                           "type": "int"},
-                "PL": {"vcf_field_class": ["FORMAT"], "type": "int",
-                       "length": "G"},
-                "END": {"vcf_field_class": ["INFO"], "type": "int"},
-            },
-            "contigs": {"1": {"length": 249250621,
-                              "tiledb_column_offset": 0}},
-        }, f)
-    callset_file = os.path.join(tmp, "callsets.json")
-    with open(callset_file, "w") as f:
-        json.dump({"callsets": {
-            f"S{i}": {"row_idx": i, "idx_in_file": i,
-                      "filename": vcf_path}
-            for i in range(args.samples)}}, f)
+    vid_file, callset_file = write_mappings(
+        tmp, [(vcf_path, [f"S{i}" for i in range(args.samples)])])
 
     vid = VidMapper.from_files(vid_file, callset_file)
     t0 = time.perf_counter()

@@ -143,13 +143,14 @@ def main(argv=None):
                    help="split input VCFs per column partition into DIR "
                         "instead of importing (vcf2tiledb.cc:118-151)")
     p.add_argument("--platform", default=None,
-                   help="pin the jax platform via jax.config (env "
-                        "JAX_PLATFORMS can be overridden by a "
-                        "pre-registered TPU plugin)")
+                   help="pin the jax platform (e.g. 'cpu', 'gpu'); "
+                        "default: JAX's own choice")
     args = p.parse_args(argv)
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
+    from ..runtime.device_env import init_compile_cache
+    init_compile_cache()
     import json as _json
     try:
         if args.split_output_dir:

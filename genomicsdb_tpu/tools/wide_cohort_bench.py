@@ -29,70 +29,22 @@ import sys
 import tempfile
 import time
 
-
-def make_wide_cohort(path: str, n_samples: int, n_records: int) -> int:
-    """One multi-sample gVCF: all samples share the record grid (the
-    joint-genotyping shape after GenomicsDBImport)."""
-    rng = random.Random(11)
-    samples = [f"W{i}" for i in range(n_samples)]
-    with open(path, "w") as f:
-        f.write("##fileformat=VCFv4.1\n")
-        for line in [
-            '##ALT=<ID=NON_REF,Description="n">',
-            '##FORMAT=<ID=GT,Number=1,Type=String,Description="g">',
-            '##FORMAT=<ID=AD,Number=.,Type=Integer,Description="a">',
-            '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="d">',
-            '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="q">',
-            '##FORMAT=<ID=MIN_DP,Number=1,Type=Integer,Description="m">',
-            '##FORMAT=<ID=PL,Number=G,Type=Integer,Description="p">',
-            '##INFO=<ID=END,Number=1,Type=Integer,Description="e">',
-            '##INFO=<ID=MQ0,Number=1,Type=Integer,Description="z">',
-            '##contig=<ID=1,length=2000000000>',
-        ]:
-            f.write(line + "\n")
-        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
-                + "\t".join(samples) + "\n")
-        pos = 1
-        for i in range(n_records):
-            if i % 7 == 6:
-                alt = rng.choice(["A", "T", "G"])
-                cells = "\t".join(
-                    f"0/{rng.randint(0, 1)}:{rng.randint(1, 40)},"
-                    f"{rng.randint(1, 40)},0:{rng.randint(10, 99)}:"
-                    f"{rng.randint(10, 99)}:.:{rng.randint(0, 500)},0,"
-                    f"{rng.randint(0, 500)},{rng.randint(0, 500)},"
-                    f"{rng.randint(0, 500)},{rng.randint(0, 500)}"
-                    for _ in range(n_samples))
-                f.write(f"1\t{pos}\t.\tC\t{alt},<NON_REF>\t.\t.\t"
-                        f"MQ0={rng.randint(0, 9)}\t"
-                        f"GT:AD:DP:GQ:MIN_DP:PL\t{cells}\n")
-                pos += 1
-            else:
-                end = pos + rng.randint(50, 400)
-                cells = "\t".join(
-                    f"0/0:.:{rng.randint(1, 60)}:0:0:0,0,0"
-                    for _ in range(n_samples))
-                f.write(f"1\t{pos}\t.\tC\t<NON_REF>\t.\t.\tEND={end}\t"
-                        f"GT:AD:DP:GQ:MIN_DP:PL\t{cells}\n")
-                pos = end + 1
-    return pos
+from . import synth_cohort
 
 
 def run(n_samples=1000, n_records=2000, n_windows=4, skip_seq=False):
     from ..core.config import QueryParams
-    from ..core.vid import VidMapper
     from ..query import driver
     from ..store.import_pipeline import import_callsets
 
     td = tempfile.mkdtemp(prefix="wide_cohort_")
     path = os.path.join(td, "wide.vcf")
     t0 = time.perf_counter()
-    region = make_wide_cohort(path, n_samples, n_records)
+    samples, region = synth_cohort.write_wide_cohort(path, n_samples,
+                                                     n_records, seed=11)
     gen_s = time.perf_counter() - t0
-    vid = VidMapper.from_files("/root/reference/tests/inputs/vid.json")
-    vid.parse_callsets({"callsets": {
-        f"W{i}": {"row_idx": i, "idx_in_file": i, "filename": path}
-        for i in range(n_samples)}})
+    vid = synth_cohort.load_vid(*synth_cohort.write_mappings(
+        td, [(path, samples)]))
     t0 = time.perf_counter()
     store = import_callsets(vid)
     import_s = time.perf_counter() - t0
@@ -207,11 +159,7 @@ def main(argv=None):
     p.add_argument("--skip-seq", action="store_true",
                    help="skip the sequential-engine window checks "
                         "(bench-only mode)")
-    p.add_argument("--platform", default="cpu")
     args = p.parse_args(argv)
-    if args.platform != "default":
-        import jax
-        jax.config.update("jax_platforms", args.platform)
     out = run(args.samples, args.records, args.windows, args.skip_seq)
     print(json.dumps(out))
 

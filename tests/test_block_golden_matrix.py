@@ -1,7 +1,7 @@
 """Block-engine golden matrix: every combined-VCF golden must come out
 byte-exact through the BATCHED device pipeline (run_vcf_query_block),
 not just the sequential oracle.  This is the widening contract for the
-TPU fast path: any config here that silently splices to the sequential
+device path: any config here that silently splices to the sequential
 engine still passes, but the splice-rate test below bounds how much
 splicing is allowed on the default corpus."""
 
@@ -110,17 +110,3 @@ def test_block_min_PL_vcf():
         produce_GT_field=True,
         produce_GT_with_min_PL_value_for_spanning_deletions=True),
         "min_PL_spanning_deletion_vcf")
-
-
-@pytest.mark.parametrize("kw,name", [
-    ({}, "t0_haploid_triploid_1_2_3_triploid_deletion_vcf"),
-    ({"produce_GT_field": True},
-     "t0_haploid_triploid_1_2_3_triploid_deletion_vcf_produce_GT"),
-])
-def test_block_haploid_triploid_vcf_fused(kw, name, monkeypatch):
-    """Mixed-ploidy cohorts through the fused kernel's per-call-ploidy
-    variant (interpret mode on CPU) — golden-exact."""
-    monkeypatch.setenv("GENOMICSDB_TPU_FUSED", "1")
-    check(run_vcf_block(HAPLOID, VCF_ATTRIBUTES_ORDER, RANGE0,
-                        vid_file="inputs/vid_DS_ID_phased_GT.json", **kw),
-          name)

@@ -167,7 +167,7 @@ def test_ooc_bounded_rss_subprocess(tmp_path):
     """Serving a partition must not page the partition into RSS.  The
     engine's working set is a CONSTANT (~250 MB of XLA block buffers +
     the python/jax baseline, measured identical for 0.3 and 1 GB
-    partitions — see BENCH out_of_core); an 800 MB partition must serve
+    partitions — see bench.py out_of_core); an 800 MB partition must serve
     with peak RSS well below its own size."""
     import json
     import subprocess

@@ -140,7 +140,7 @@ def test_hybrid_block_engine_fuzz(seed, pack, tmp_path, monkeypatch):
     """Random gVCF cohorts (ref blocks + SNVs + deletions + gaps):
     the hybrid block engine must byte-match the sequential engine —
     with pack=1 the variant-row-only blob fetch + native identity
-    scatter path runs (the production chip fetch) on the same data."""
+    scatter path runs (the GENOMICSDB_TPU_PACK=1 fetch) on the same data."""
     monkeypatch.setenv("GENOMICSDB_TPU_PACK", pack)
     import os
     import random as _random

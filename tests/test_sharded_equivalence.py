@@ -135,79 +135,3 @@ def test_sharded_equals_unsharded_store_block():
     step = sharded_combine_step(mesh, max_merged=4, ploidy=2)
     out = step(*args)
     _assert_outputs_equal(ref, out, len(blk.starts), blk.col.shape[0])
-
-
-@pytest.mark.parametrize("n_pos,n_row", [(4, 2), (2, 4)])
-def test_fused_sharded_equals_unsharded(n_pos, n_row):
-    """Mesh-sharded fused Pallas step (interpret mode on the virtual
-    CPU mesh): each shard runs the sublane-packed VMEM kernel on its
-    local slab; outputs must equal the unsharded XLA combine exactly."""
-    from genomicsdb_tpu.parallel.sharded import (
-        shard_block_fused, sharded_combine_step_fused)
-    if len(jax.devices()) < n_pos * n_row:
-        pytest.skip("needs 8 virtual devices")
-    blk = synthesize_cohort(num_samples=8, cells_per_sample=48,
-                            region_len=4096, seed=11)
-    ref = combine_step(*block_to_args(blk), max_merged=4, ploidy=2)
-    mesh = make_mesh(n_pos, n_row)
-    prep = shard_block_fused(mesh, blk, max_merged=4, ploidy=2, rt=8)
-    assert prep is not None
-    args, cfg, b_local, b_real, s_real = prep
-    step = sharded_combine_step_fused(mesh, cfg, b_local,
-                                      interpret=True)
-    out = step(*args)
-    _assert_outputs_equal(ref, out, b_real, s_real)
-
-
-def test_mesh_block_query_golden_fused(monkeypatch):
-    """Golden-exact combined VCF from an 8-device mesh run with the
-    per-shard fused Pallas kernel forced on (interpret mode on the
-    virtual CPU mesh) — the gdb_query --mesh production TPU path."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(__file__))
-    from golden_utils import (REF_TESTS, VCF_ATTRIBUTES_ORDER, golden,
-                              load_setup, make_query_params)
-    from genomicsdb_tpu.query import driver
-    monkeypatch.setenv("GENOMICSDB_TPU_FUSED", "1")
-    vid, store = load_setup("inputs/callsets/t0_1_2.json")
-    qp = make_query_params(VCF_ATTRIBUTES_ORDER, [(0, 1000000000)])
-    qc = driver.make_query_config(qp, vid)
-    got = driver.run_vcf_query_block(
-        store, qc, qp, vid,
-        template_path=os.path.join(REF_TESTS,
-                                   "inputs/template_vcf_header.vcf"),
-        reference_path=os.path.join(REF_TESTS,
-                                    "inputs/chr1_10MB.fasta.gz"),
-        mesh=make_mesh(4, 2))
-    assert got == golden("t0_1_2_vcf_at_0")
-
-
-def test_mesh_block_query_golden_general_ploidy_fused(monkeypatch):
-    """Mixed-ploidy cohort through the mesh with the per-shard fused
-    kernel's per-call-ploidy variant forced on: golden-exact."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(__file__))
-    from golden_utils import (REF_TESTS, VCF_ATTRIBUTES_ORDER, golden,
-                              load_setup, make_query_params)
-    from genomicsdb_tpu.query import driver
-    monkeypatch.setenv("GENOMICSDB_TPU_FUSED", "1")
-    vid, store = load_setup(
-        "inputs/callsets/t0_haploid_triploid_1_2_3_triploid_deletion.json",
-        vid_file="inputs/vid_DS_ID_phased_GT.json")
-    qp = make_query_params(VCF_ATTRIBUTES_ORDER, [(0, 1000000000)])
-    qc = driver.make_query_config(qp, vid)
-    got = driver.run_vcf_query_block(
-        store, qc, qp, vid,
-        template_path=os.path.join(REF_TESTS,
-                                   "inputs/template_vcf_header.vcf"),
-        reference_path=os.path.join(REF_TESTS,
-                                    "inputs/chr1_10MB.fasta.gz"),
-        mesh=make_mesh(4, 2))
-    assert got == golden(
-        "t0_haploid_triploid_1_2_3_triploid_deletion_vcf")

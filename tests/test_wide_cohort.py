@@ -2,7 +2,7 @@
 scale): block==sequential on sampled windows, chunk-invariant output.
 
 The full chromosome-scale bench lives in tools/wide_cohort_bench.py
-(recorded in BENCH via bench.py); the 1000-sample correctness run is
+(a bench.py lane); the 1000-sample correctness run is
 slow (~2 min) and marked `slow` — select with `pytest -m slow`.
 A 200-sample variant runs in the default suite."""
 
